@@ -5,9 +5,12 @@ Runs full DCD PAIRED cycles (teacher construction scan + student +
 antagonist rollouts + 3 PPO updates) on the default adversarial env
 (15x15, n_clutter=50) and reports student+antagonist env-steps/s.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
-``vs_baseline`` is measured against the reference architecture's subprocess
-ceiling (~1e3 env-steps/s; SURVEY.md §6).
+Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", "bf16",
+"device", "compile_s", "peak_bytes_in_use"}. ``vs_baseline`` is measured
+against the reference architecture's subprocess ceiling (~1e3 env-steps/s;
+SURVEY.md §6). ``device`` names what JAX ran on (platform, device_kind,
+count). The full-size run needs a GPU and fails without one; ``--quick`` is
+the small CPU rehearsal, labelled with whatever platform it ran on.
 """
 
 import argparse
@@ -24,9 +27,9 @@ def main():
     ap.add_argument('--cycles', type=int, default=None)
     ap.add_argument('--mesh_shape', type=str, default='',
                     help="shard the benchmark over a mesh, e.g. 'dp:8'")
-    # precision follows the product default: --bf16 auto = bf16 on TPU,
-    # f32 on CPU (arguments.py; 495.6k bf16 vs 478.3k f32 on a v5e,
-    # PERF.md round 3). The resolved mode is emitted in the JSON line.
+    # precision follows the product default: --bf16 auto = bf16 on an
+    # accelerator, f32 on CPU (arguments.py). The resolved mode is emitted
+    # in the JSON line.
     ap.add_argument('--bf16', type=str, default='auto')
     ap.add_argument('--fuse_paired', type=str, default='false')
     ap.add_argument('--fuse_paired_rollouts', type=str, default='false')
@@ -36,7 +39,14 @@ def main():
     import jax
 
     from dcd_isaac_tpu.utils.compile_cache import enable_persistent_cache
+    from dcd_isaac_tpu.utils.device import device_summary, peak_bytes_in_use
     enable_persistent_cache()
+
+    device = device_summary()
+    if not args_cli.quick and device['platform'] != 'gpu':
+        raise SystemExit(
+            f"bench.py: the full-size run needs a GPU, JAX found "
+            f"{device['platform']!r}; use --quick for a CPU rehearsal")
 
     from dcd_isaac_tpu.arguments import parser
     from dcd_isaac_tpu.envs.registry import make_env
@@ -46,9 +56,9 @@ def main():
     if args_cli.quick:
         N, T, cycles, env_name = 64, 64, 3, 'MultiGrid-MiniAdversarial-v0'
     else:
-        # N=8192 is the measured single-chip sweet spot on a v5e (PERF.md
-        # round-5 batch sweep: 4096 -> 536k, 8192 -> 572k steps/s, 16384
-        # OOMs 15.75G HBM). T=256 matches the reference rollout length.
+        # N=8192 was the batch size picked on the earlier pre-GPU build; it is
+        # not yet swept on the H100 (ROADMAP A2). T=256 matches the
+        # reference rollout length.
         N, T, cycles, env_name = 8192, 256, 3, 'MultiGrid-Adversarial-v0'
     N = args_cli.num_processes or N
     T = args_cli.num_steps or T
@@ -82,9 +92,11 @@ def main():
         runner.attach_mesh(make_mesh_from_spec(args_cli.mesh_shape))
 
     # warmup / compile (two cycles: the runner-state pytree must be warm)
+    t0 = time.perf_counter()
     runner.run()
     runner.run()
     jax.block_until_ready(runner.state.agent.params)
+    compile_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     for _ in range(cycles):
@@ -104,9 +116,13 @@ def main():
         'value': round(sps, 1),
         'unit': 'steps/s',
         'vs_baseline': round(sps / baseline_sps, 2),
-        # precision mode actually measured (ADVICE r3): comparisons across
-        # rounds are self-describing
+        # precision mode actually measured: comparisons across runs are
+        # self-describing
         'bf16': resolve_bf16(args),
+        'device': device,
+        # the two warm-up cycles, compilation included
+        'compile_s': round(compile_s, 2),
+        'peak_bytes_in_use': peak_bytes_in_use(),
     }))
 
 

@@ -1,4 +1,4 @@
-"""dcd_isaac_tpu: a TPU-native Dual Curriculum Design (UED) framework.
+"""dcd_isaac_tpu: an accelerator-native Dual Curriculum Design (UED) framework.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
 dcd codebase (PAIRED, Minimax, DR, PLR, Robust PLR, REPAIRED, ACCEL, ALP-GMM

@@ -21,12 +21,12 @@ from typing import Any, Callable, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
 from ..models import popart as popart_lib
 from ..models.distributions import (
     categorical_entropy, categorical_log_prob,
 )
+from ..utils import struct
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +122,7 @@ def make_ppo_update(
         return node
 
     def set_head(params, kernel, bias):
-        # flax params are nested dicts; rebuild the path immutably.
+        # params are nested dicts; rebuild the path immutably.
         def rec(node, path):
             if not path:
                 return {**node, 'kernel': kernel, 'bias': bias}

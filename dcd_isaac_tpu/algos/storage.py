@@ -1,9 +1,9 @@
 """Rollout storage as a pytree + GAE/returns.
 
-TPU-native replacement for reference algos/storage.py: instead of a mutable
-(T+1, N, ...) buffer object filled step-by-step over pickle pipes, a rollout
-is the stacked ``ys`` of a ``lax.scan`` — an immutable (T, N, ...) pytree that
-never leaves HBM.
+Accelerator-native replacement for reference algos/storage.py: instead of a
+mutable (T+1, N, ...) buffer object filled step-by-step over pickle pipes, a
+rollout is the stacked ``ys`` of a ``lax.scan`` — an immutable (T, N, ...)
+pytree that never leaves device memory.
 
 Semantics kept from the reference:
   * masks[t+1] = 0 when step t ended an episode (storage.py:177)
@@ -26,7 +26,8 @@ from typing import Any, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils import struct
 
 
 @struct.dataclass

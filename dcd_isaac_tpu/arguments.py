@@ -2,7 +2,8 @@
 
 Mirrors reference arguments.py flag-for-flag (same names, same defaults) so
 the reference's grid configs (train_scripts/grid_configs/*.json) drive this
-framework unchanged.  A few TPU-specific flags are added at the bottom.
+framework unchanged.  A few accelerator-specific flags are added at the
+bottom.
 """
 
 import argparse
@@ -127,17 +128,18 @@ _FLAGS = [
     ('use_categorical_adv', str2bool, False),
     ('sparse_rewards', str2bool, False),
     ('num_goal_bins', int, 1),
-    # --- TPU-native additions -------------------------------------------
+    # --- accelerator additions ------------------------------------------
+    # The accelerator-side defaults below (bf16, rollout unroll, fusion off)
+    # were chosen on the earlier (pre-GPU) build and are not yet measured on the
+    # H100 (ROADMAP C3).
     # bfloat16 model compute. Default None = auto: bf16 on accelerator
-    # backends (TPU-idiomatic; 495.6k vs 478.3k steps/s f32 on a v5e,
-    # PERF.md r3), f32 on CPU (tests/dryrun keep exact f32 numerics).
+    # backends, f32 on CPU (tests/dryrun keep exact f32 numerics).
     # train.py, bench.py and eval.py all resolve this the same way.
     ('bf16', str2bool, None),
     # vmap both PAIRED students' rollout+update into one program.  Default
-    # off: at N=4096 on a v5e chip the fused cycle measured 437k steps/s vs
-    # 478k unfused (doubled live activations push XLA into remat), and its
-    # cold compile is ~2x slower.  The fusion can still win at small N
-    # (CPU smoke: ~1.6x) — it remains available as a flag.
+    # off: at large N the doubled live activations pushed XLA into remat and
+    # the fused cycle lost, and its cold compile is ~2x slower.  It may
+    # still win at small N — it remains available as a flag.
     ('fuse_paired', str2bool, False),
     # vmap ONLY the two students' rollouts (not their PPO updates) into one
     # 2N-batch scan. Unlike the full fusion this does not double the live
@@ -145,22 +147,21 @@ _FLAGS = [
     # the rollout scan's launch count and doubles per-step matmul batch.
     ('fuse_paired_rollouts', str2bool, False),
     # K update cycles per compiled dispatch (runner.run_batched): amortizes
-    # the per-cycle host round trip that binds small-N production configs
-    # (PERF.md r3: N=32 ran 29x under the N=4096 bench). 1 = the sequential
+    # the per-cycle host round trip that binds small-N production configs.
+    # 1 = the sequential
     # reference-shaped loop. Logging stays per-cycle; eval/weight-log/
     # screenshot cadences snap to dispatch boundaries (intervals should be
     # multiples of K to avoid extra recompiles).
     ('cycles_per_dispatch', int, 1),
     # lax.scan unroll for the rollout step loop. Default None = auto:
-    # 4 on accelerator backends (bench A/B on a v5e: 498k → 539k steps/s
-    # at unroll 4; unroll 8 regressed to 523k — PERF.md r4), 1 on CPU
-    # (keeps test-suite compiles small). Numerically identical either way.
+    # 4 on accelerator backends, 1 on CPU (keeps test-suite compiles
+    # small). Numerically identical either way.
     ('rollout_unroll', int, None),
-    ('mesh_shape', str, ''),            # e.g. "dp:8" / "dp:4,tp:2"
+    ('mesh_shape', str, ''),            # e.g. "dp:4" / "dp:2,tp:2"
     ('profile_dir', str, ''),           # jax.profiler trace output
     ('multihost', str2bool, False),     # jax.distributed.initialize()
-    # explicit jax.distributed coordinates (pod-slice launchers usually
-    # set these via env; the 2-process CPU test passes them explicitly)
+    # jax.distributed coordinates: a GPU host group needs all three
+    # (jax.distributed.initialize() finds no cluster on its own there)
     ('coordinator_address', str, ''),
     ('num_hosts', int, 0),
     ('host_idx', int, -1),

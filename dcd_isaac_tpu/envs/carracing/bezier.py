@@ -8,6 +8,7 @@ edgy=0.2).  All shapes static; binomial coefficients precomputed.
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 
@@ -27,7 +28,10 @@ def bezier_curve(control4: jnp.ndarray, num: int) -> jnp.ndarray:
     b = jnp.stack([
         (1 - t) ** 3, 3 * t * (1 - t) ** 2, 3 * t ** 2 * (1 - t), t ** 3,
     ], -1)  # (num, 4)
-    return jnp.einsum('nk,...kd->...nd', b, control4)
+    # full f32: a TF32 default-precision pass would round the track
+    # geometry (10-bit mantissa) on the GPU
+    return jnp.einsum('nk,...kd->...nd', b, control4,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def get_bezier_track(a: jnp.ndarray, rad: float = 0.2, edgy: float = 0.2,

@@ -15,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ...utils import struct
 
 # gym car_dynamics constants
 SIZE = 0.02
@@ -124,7 +125,7 @@ def car_step(car: CarState, steer_cmd, gas_cmd, brake_cmd,
 
     ca, sa = jnp.cos(car.angle), jnp.sin(car.angle)
     R = jnp.array([[ca, -sa], [sa, ca]])
-    wheel_world = car.pos + WHEELPOS @ R.T           # (4, 2)
+    wheel_world = car.pos + _rotate(R)               # (4, 2)
 
     # wheel orientations: front wheels add the steering angle
     wheel_ang = car.angle + jnp.array([1.0, 1.0, 0.0, 0.0]) * steer_angle
@@ -177,7 +178,12 @@ def car_step(car: CarState, steer_cmd, gas_cmd, brake_cmd,
         steer_angle=steer_angle, gas=gas, fuel_spent=fuel)
 
 
+def _rotate(R: jnp.ndarray) -> jnp.ndarray:
+    """WHEELPOS rotated by R, in full f32 (not TF32) on the GPU."""
+    return jnp.matmul(WHEELPOS, R.T, precision=jax.lax.Precision.HIGHEST)
+
+
 def wheel_positions(car: CarState) -> jnp.ndarray:
     ca, sa = jnp.cos(car.angle), jnp.sin(car.angle)
     R = jnp.array([[ca, -sa], [sa, ca]])
-    return car.pos + WHEELPOS @ R.T
+    return car.pos + _rotate(R)

@@ -19,13 +19,13 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .dynamics import CarState, car_step, init_car, wheel_positions
 from .track import (
     FPS, PLAYFIELD, STATE_H, STATE_W, TRACK_WIDTH, Track, build_track,
     nearest_tile, on_road, render_frame,
 )
+from ...utils import struct
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,7 +13,8 @@ from __future__ import annotations
 import jax
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+
+from ...utils import struct
 
 # Constants (car_racing_bezier.py:39-61)
 STATE_W, STATE_H = 96, 96
@@ -109,7 +110,7 @@ def nearest_tile(track: Track, q: jnp.ndarray):
 
     Expanded form |q|² + |p|² − 2 q·p so the cross term is a matmul: for
     the 96×96-pixel render this turns the (pixels × P) pair-distance
-    tensor's inner work into one (pixels, 2) × (2, P) MXU contraction
+    tensor's inner work into one (pixels, 2) × (2, P) matmul
     instead of a broadcast subtract/square, and min/argmin consume the
     fused result directly (no gather pass).  f32 cancellation error here
     is ≤ ~1e-2 world-units² against a road threshold of TRACK_WIDTH² ≈ 44
@@ -117,10 +118,11 @@ def nearest_tile(track: Track, q: jnp.ndarray):
     """
     q2 = (q ** 2).sum(-1)
     p2 = (track.points ** 2).sum(-1)
-    # HIGHEST precision: TPU matmuls default to bf16 inputs, whose ~2^-9
-    # relative rounding on cross terms of magnitude ~1e5 would inject
-    # hundreds of units^2 into d2 — far past the 44-unit^2 road threshold.
-    # f32-accumulated passes keep the stated ~1e-2 bound on real hardware.
+    # HIGHEST precision: on the GPU an f32 matmul at default precision may
+    # run in TF32, whose 10-bit mantissa (~2^-11 relative rounding) on
+    # cross terms of magnitude ~1e5 would inject tens to hundreds of
+    # units^2 into d2 — past the 44-unit^2 road threshold. Full-f32 passes
+    # keep the stated ~1e-2 bound.
     qp = jnp.matmul(q, track.points.T, precision=jax.lax.Precision.HIGHEST)
     d2 = q2[..., None] + p2 - 2.0 * qp
     d2 = jnp.where(track.valid, d2, jnp.inf)

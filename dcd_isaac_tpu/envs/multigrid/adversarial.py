@@ -1,6 +1,6 @@
 """Adversarial (UED) MultiGrid environment, pure JAX.
 
-TPU-native re-design of reference envs/multigrid/adversarial.py.  The teacher
+JAX re-design of reference envs/multigrid/adversarial.py.  The teacher
 ("adversary_env") builds a level one placement per ``step_adversary``; levels
 are fixed-size (W, H, 3) uint8 encodings (the same byte layout as the
 reference's ``Grid.encode()``), so the level store is a dense HBM tensor.

@@ -1,6 +1,6 @@
 """Pure-JAX MultiGrid engine.
 
-A TPU-native re-design of the reference's object-graph grid engine
+An accelerator-native re-design of the reference's object-graph grid engine
 (reference: envs/multigrid/multigrid.py:341-1039).  The grid is a dense
 (W, H) uint8 array of MiniGrid cell-type codes indexed ``grid[x, y]`` (the
 reference's image layout), the single agent is an overlay (pos, dir) rather
@@ -25,12 +25,12 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from .constants import (
     AGENT, DIR_TO_VEC, EMPTY, GOAL, LAVA, TYPE_COLOR, UNSEEN, WALKABLE, WALL,
     FORWARD, LEFT, RIGHT,
 )
+from ...utils import struct
 
 
 @dataclasses.dataclass(frozen=True)

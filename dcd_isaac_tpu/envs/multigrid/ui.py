@@ -1,6 +1,6 @@
 """Interactive MultiGrid viewer + keyboard driver.
 
-TPU-native stand-in for the reference UI tools
+Accelerator-native stand-in for the reference UI tools
 (envs/multigrid/window.py: matplotlib Window;
 envs/multigrid/manual_control.py: keyboard driver): a `Window` that renders
 the JAX env state as an image, and `manual_control()` that binds keys to

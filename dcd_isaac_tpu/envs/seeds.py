@@ -6,8 +6,8 @@ bits into the float — but ~0.4% of uint32 draws are float32 NaN/Inf bit
 patterns, which poisons the PLR level buffer (`--debug_nans` trips on
 buffer contents, and XLA passes are free to canonicalize NaNs in
 transit, silently corrupting the seed; a NaN-seed level in the walker
-buffer coincided with a reproducible TPU worker kernel fault at replay
-time, RESULTS.md r4).
+buffer coincided with a reproducible device fault at replay time,
+RESULTS.md r4).
 
 Instead, seeds are drawn from [0, 2^24) and stored with a plain value
 cast — every value is exactly representable in float32, the round trip

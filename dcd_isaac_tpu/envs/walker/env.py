@@ -9,10 +9,10 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from . import physics as ph
 from .terrain import generate_terrain
+from ...utils import struct
 
 
 @struct.dataclass
@@ -34,7 +34,8 @@ class WalkerState:
 def hull_origin(bodies: ph.Bodies) -> jnp.ndarray:
     """Box2D body position (polygon local origin), from centroid pos."""
     R = ph.rot(bodies.angle[0])
-    return bodies.pos[0] - R @ jnp.asarray(ph.HULL_CENTROID)
+    return bodies.pos[0] - jnp.matmul(
+        R, jnp.asarray(ph.HULL_CENTROID), precision=ph.HIGHEST)
 
 
 def place_walker(rng: jax.Array) -> ph.Bodies:

@@ -2,7 +2,7 @@
 
 Replaces Box2D (reference envs/bipedalwalker/walker_env.py:120-541,
 ``b2World.Step(1/50, 180, 60)``) with a batched impulse solver designed for
-TPU: the walker is a fixed-topology articulated body (hull + 4 leg segments,
+an accelerator: the walker is a fixed-topology articulated body (hull + 4 leg segments,
 4 revolute joints with motors and limits) colliding with static terrain
 (a heightfield edge-chain + axis-aligned obstacle boxes).  All state is a
 small pytree of arrays; thousands of walkers step in lockstep under
@@ -14,7 +14,7 @@ contact points so the sequential depth per velocity iteration is O(joints),
 not O(contacts)); Baumgarte stabilization replaces Box2D's position solver.
 Iteration counts are much lower than the reference's 180/60 (they are far
 past convergence for 5 bodies); stability was the design target, not
-bit-exact Box2D trajectories (BASELINE.json: behavioral parity).
+bit-exact Box2D trajectories (the target is behavioural parity).
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ...utils import struct
 
 # --- constants (walker_env.py:33-57) --------------------------------------
 FPS = 50
@@ -49,13 +50,15 @@ HULL_POLY = np.array(
 
 NUM_BODIES = 5          # 0 hull, 1 upper-L, 2 lower-L, 3 upper-R, 4 lower-R
 VEL_ITERS = 40
-# Unroll factor for the velocity-solver scan.  Unrolling looked like a
-# fusion win on paper (each iteration is a tiny Jacobi sweep), but the
-# TPU measurement went the other way: unroll=10 REGRESSED the walker
-# generate cycle 2.0 s -> 4.3 s (r5 campaign logs) — the 10x body blows
-# the step program past what fits the core's instruction scheduling
-# sweet spot.  Keep the plain scan; numerics identical either way.
+# Unroll factor for the velocity-solver scan (numerics identical for any
+# value). 1 was chosen on the earlier (pre-GPU) build and is not yet measured on
+# the GPU.
 VEL_UNROLL = 1
+# Full-f32 passes for the small rotation contractions: on the GPU an f32
+# matmul at default precision may run in TF32 (10-bit mantissa), far
+# coarser than the Box2D parity envelopes. The dots are tiny, so the cost
+# is nil.
+HIGHEST = jax.lax.Precision.HIGHEST
 POS_BAUMGARTE = 0.2
 PEN_SLOP = 0.005
 
@@ -180,7 +183,7 @@ def world_vertices(bodies: Bodies) -> jnp.ndarray:
     """(5, 5, 2) world-space vertices of every body."""
     R = rot(bodies.angle)                       # (5, 2, 2)
     return bodies.pos[:, None, :] + jnp.einsum(
-        'bij,bvj->bvi', R, jnp.asarray(BODY_VERTS))
+        'bij,bvj->bvi', R, jnp.asarray(BODY_VERTS), precision=HIGHEST)
 
 
 def ground_height(terrain: Terrain, x: jnp.ndarray):
@@ -284,8 +287,10 @@ def physics_step(bodies: Bodies, terrain: Terrain,
     def joint_anchors(bodies):
         Ra = rot(bodies.angle[ja])
         Rb = rot(bodies.angle[jb])
-        ra = jnp.einsum('jik,jk->ji', Ra, jnp.asarray(JOINT_ANCHOR_A))
-        rb = jnp.einsum('jik,jk->ji', Rb, jnp.asarray(JOINT_ANCHOR_B))
+        ra = jnp.einsum('jik,jk->ji', Ra, jnp.asarray(JOINT_ANCHOR_A),
+                        precision=HIGHEST)
+        rb = jnp.einsum('jik,jk->ji', Rb, jnp.asarray(JOINT_ANCHOR_B),
+                        precision=HIGHEST)
         return ra, rb
 
     ra, rb = joint_anchors(bodies)

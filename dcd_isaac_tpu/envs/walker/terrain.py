@@ -16,12 +16,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .physics import (
     MAX_BOXES, TERRAIN_GRASS, TERRAIN_HEIGHT, TERRAIN_LENGTH, TERRAIN_STARTPAD,
     TERRAIN_STEP, Terrain, SCALE,
 )
+from ...utils import struct
 
 # Fixed sub-ranges (adversarial.py:78-81): randint collapses these to
 # constants: stump_width=1, stump_float=0, stair_width=4.

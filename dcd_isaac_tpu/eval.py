@@ -129,6 +129,8 @@ def main(argv=None):
                            + [f'{np.nanmean(vals):.4f}',
                               f'{np.nanstd(vals):.4f}'])
     print(f'Wrote {out}')
+    from .utils.device import device_report
+    print(device_report(), flush=True)
     return out
 
 

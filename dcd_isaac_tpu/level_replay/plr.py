@@ -1,6 +1,6 @@
 """Device-resident Prioritized Level Replay (PLR).
 
-TPU-native redesign of reference level_replay/level_sampler.py +
+Accelerator-native redesign of reference level_replay/level_sampler.py +
 level_store.py: the seed→level map and all sampler statistics collapse into
 one dense HBM buffer of ``capacity`` slots (levels are fixed-size arrays in
 this suite — SURVEY.md §5.8), and the per-episode Python scoring loops
@@ -20,7 +20,7 @@ Semantic mapping (all formulas preserved):
   * sample weights: score transform × (1-unseen), staleness mixing
     (level_sampler.py:726-785)
 
-Documented deviations (distributional parity per BASELINE.json;
+Documented deviations (distributional parity is the target;
 quantified vs a sequential numpy oracle of the reference algorithm in
 tests/test_plr_distributional_parity.py):
   * staged promotion happens once post-rollout instead of at each episode
@@ -46,7 +46,8 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils import struct
 
 NEG_INF = -1e9
 
@@ -120,7 +121,7 @@ def init_plr(cfg: PLRConfig, level_shape: Tuple[int, ...],
             unseen=jnp.ones((S,)),
             filled=jnp.ones((S,), bool),
             solvable=jnp.ones((S,), bool),
-            grounded_values=jnp.full((S,), NEG_INF),
+            grounded_values=jnp.full((S,), NEG_INF, jnp.float32),
             num_edits=jnp.zeros((S,), jnp.int32),
             slot_ids=jnp.arange(S, dtype=jnp.int32),
             next_id=jnp.int32(S),
@@ -136,7 +137,7 @@ def init_plr(cfg: PLRConfig, level_shape: Tuple[int, ...],
         unseen=jnp.ones((S,)),
         filled=jnp.zeros((S,), bool),
         solvable=jnp.ones((S,), bool),
-        grounded_values=jnp.full((S,), NEG_INF),
+        grounded_values=jnp.full((S,), NEG_INF, jnp.float32),
         num_edits=jnp.zeros((S,), jnp.int32),
         slot_ids=jnp.full((S,), -1, jnp.int32),
         next_id=jnp.int32(0),
@@ -566,7 +567,7 @@ def promote_staged(
     if cfg.dedup:
         def lhash(lv, mult):
             # FNV-style positional hash; two independent 32-bit lanes give
-            # a 64-bit collision space (x64 mode is off on TPU)
+            # a 64-bit collision space (x64 mode is off)
             flat = lv.reshape(lv.shape[0], -1).astype(jnp.uint32)
             k = (jnp.arange(flat.shape[1], dtype=jnp.uint32)
                  * jnp.uint32(mult) + jnp.uint32(1))

@@ -1,3 +1,3 @@
-from .common import RNNCore, mlp
+from .common import RNNCore
 from .multigrid_models import MultigridNetwork
 from . import distributions, popart

@@ -1,4 +1,4 @@
-"""CarRacing actor-critic networks (flax).
+"""CarRacing actor-critic networks.
 
 Parity with reference models/car_racing_models.py: student = 6-layer conv
 stack on stacked 96×96 (or cropped 84×84) frames → 100-d fc → Beta(α, β)
@@ -12,14 +12,15 @@ Beta(x, y, skip) heads (+ optional PopArt critic) (:168-530).
 
 from __future__ import annotations
 
-from typing import Any, Sequence, Tuple
+import dataclasses
+from typing import Any, Tuple
 
 import jax
 import numpy as np
 import jax.numpy as jnp
-from flax import linen as nn
 
-from .common import ortho, xavier_uniform, zeros
+from . import nn
+from .nn import Scope, constant, ortho, xavier_uniform
 from .distributions import (
     beta_entropy, beta_log_prob, beta_mode, beta_sample,
 )
@@ -27,6 +28,7 @@ from .distributions import (
 relu_gain = float(np.sqrt(2))
 
 
+@dataclasses.dataclass(frozen=True)
 class CarRacingNetwork(nn.Module):
     """Student CNN + Beta policy (car_racing_models.py:18-165)."""
     action_dim: int = 3
@@ -47,54 +49,40 @@ class CarRacingNetwork(nn.Module):
     def initial_carry(self, batch_dims):
         return ()
 
-    def setup(self):
-        conv = lambda f, k, s, name: nn.Conv(
-            f, (k, k), strides=(s, s), padding='VALID',
-            kernel_init=xavier_uniform(), dtype=self.dtype,
-            bias_init=nn.initializers.constant(0.1), name=name)
+    def _dense(self, s: Scope, name, x, features, gain=relu_gain):
+        return nn.dense(s.child(name), x, features, kernel_init=ortho(gain),
+                        dtype=self.dtype)
+
+    def _embed(self, s: Scope, obs):
         if self.crop:
             specs = [(8, 2, 2), (16, 2, 2), (32, 2, 2), (64, 2, 2),
                      (128, 3, 1), (256, 3, 1)]
         else:
             specs = [(8, 4, 2), (16, 3, 2), (32, 3, 2), (64, 3, 2),
                      (128, 3, 1), (256, 3, 1)]
-        self.convs = [conv(f, k, s, f'conv{i}')
-                      for i, (f, k, s) in enumerate(specs)]
-        self.actor_fc = nn.Dense(
-            self.hidden_size, kernel_init=ortho(relu_gain), bias_init=zeros,
-            dtype=self.dtype)
-        self.fc_alpha = nn.Dense(
-            self.action_dim, kernel_init=ortho(relu_gain), bias_init=zeros,
-            dtype=self.dtype)
-        self.fc_beta = nn.Dense(
-            self.action_dim, kernel_init=ortho(relu_gain), bias_init=zeros,
-            dtype=self.dtype)
-        self.critic_fc = nn.Dense(
-            self.hidden_size, kernel_init=ortho(relu_gain), bias_init=zeros,
-            dtype=self.dtype)
-        self.critic_head = nn.Dense(
-            1, kernel_init=ortho(1.0), bias_init=zeros, dtype=self.dtype,
-            name='critic_head')
-
-    def _embed(self, obs):
         x = obs.astype(self.dtype)  # in [-1, 1] (wrapper preprocessing)
-        for c in self.convs:
-            x = nn.relu(c(x))
+        for i, (f, k, st) in enumerate(specs):
+            x = jax.nn.relu(nn.conv(
+                s.child(f'conv{i}'), x, f, (k, k), (st, st),
+                kernel_init=xavier_uniform(), bias_init=constant(0.1),
+                dtype=self.dtype))
         return x.reshape(*x.shape[:-3], -1)
 
-    def __call__(self, obs, carry, mask):
-        x = self._embed(obs)
-        ha = nn.relu(self.actor_fc(x))
+    def __call__(self, s: Scope, obs, carry, mask):
+        x = self._embed(s, obs)
+        ha = jax.nn.relu(self._dense(s, 'actor_fc', x, self.hidden_size))
         # Beta params and value in float32 (sampling/losses full-precision)
-        alpha = 1.0 + nn.softplus(
-            self.fc_alpha(ha).astype(jnp.float32))
-        beta = 1.0 + nn.softplus(self.fc_beta(ha).astype(jnp.float32))
-        hc = nn.relu(self.critic_fc(x))
-        value = self.critic_head(hc).squeeze(-1).astype(jnp.float32)
+        alpha = 1.0 + jax.nn.softplus(self._dense(
+            s, 'fc_alpha', ha, self.action_dim).astype(jnp.float32))
+        beta = 1.0 + jax.nn.softplus(self._dense(
+            s, 'fc_beta', ha, self.action_dim).astype(jnp.float32))
+        hc = jax.nn.relu(self._dense(s, 'critic_fc', x, self.hidden_size))
+        value = self._dense(s, 'critic_head', hc, 1, gain=1.0)
+        value = value.squeeze(-1).astype(jnp.float32)
         return {'alpha': alpha, 'beta': beta}, value, carry
 
-    def sequence(self, obs, carry, masks):
-        return self(obs, carry, masks)
+    def sequence(self, s: Scope, obs, carry, masks):
+        return self(s, obs, carry, masks)
 
     # --- distribution protocol ------------------------------------------
     def sample_action(self, rng, out):
@@ -123,6 +111,7 @@ class CarRacingNetwork(nn.Module):
         return u * (high - low) + low
 
 
+@dataclasses.dataclass(frozen=True)
 class CarRacingAdversaryNetwork(nn.Module):
     """Sketch teacher (car_racing_models.py:168-530).
 
@@ -162,43 +151,21 @@ class CarRacingAdversaryNetwork(nn.Module):
     def initial_carry(self, batch_dims):
         return ()
 
-    def setup(self):
-        self.conv1 = nn.Conv(8, (2, 2), padding='VALID',
-                             kernel_init=xavier_uniform(), bias_init=zeros)
-        self.conv2 = nn.Conv(16, (2, 2), padding='VALID',
-                             kernel_init=xavier_uniform(), bias_init=zeros)
-        self.ts_embedding = nn.Dense(self.scalar_fc)
-        if self.use_categorical:
-            self.actor_fc = nn.Dense(
-                256, kernel_init=ortho(relu_gain), bias_init=zeros)
-            self.actor_head = nn.Dense(
-                self.num_cells + 1, kernel_init=ortho(1.0), bias_init=zeros)
-        else:
-            self.fc_alpha = nn.Dense(
-                self.action_dim, kernel_init=ortho(relu_gain),
-                bias_init=zeros)
-            self.fc_beta = nn.Dense(
-                self.action_dim, kernel_init=ortho(relu_gain),
-                bias_init=zeros)
-        if self.use_goal:
-            self.goal_embedding = nn.Dense(self.scalar_fc)
-            self.goal_fc = nn.Dense(
-                256, kernel_init=ortho(relu_gain), bias_init=zeros)
-            self.goal_head = nn.Dense(
-                self.num_goal_bins, kernel_init=ortho(1.0), bias_init=zeros)
-        self.critic_head = nn.Dense(
-            1, kernel_init=ortho(1.0), bias_init=zeros, name='critic_head')
-
-    def _embed(self, obs):
-        x = self.conv2(self.conv1(obs['image']))
-        x = nn.relu(x.reshape(*x.shape[:-3], -1))
+    def _embed(self, s: Scope, obs):
+        x = obs['image']
+        for name, f in (('conv1', 8), ('conv2', 16)):
+            x = nn.conv(s.child(name), x, f, (2, 2),
+                        kernel_init=xavier_uniform())
+        x = jax.nn.relu(x.reshape(*x.shape[:-3], -1))
         ts = jax.nn.one_hot(
             obs['time_step'].astype(jnp.int32), self.time_step_dim)
-        parts = [x, self.ts_embedding(ts), obs['random_z']]
+        parts = [x, nn.dense(s.child('ts_embedding'), ts, self.scalar_fc),
+                 obs['random_z']]
         if self.use_goal:
             gb = jax.nn.one_hot(
                 obs['goal_bin'].astype(jnp.int32), self.num_goal_bins + 1)
-            parts.append(self.goal_embedding(gb))
+            parts.append(
+                nn.dense(s.child('goal_embedding'), gb, self.scalar_fc))
         return jnp.concatenate(parts, axis=-1)
 
     def _sketch_logits_mask(self, obs):
@@ -222,25 +189,31 @@ class CarRacingAdversaryNetwork(nn.Module):
         t = obs['time_step'].astype(jnp.int32)
         return t == self.time_step_dim - 2  # last design step
 
-    def __call__(self, obs, carry, mask):
-        x = self._embed(obs)
+    def __call__(self, s: Scope, obs, carry, mask):
+        x = self._embed(s, obs)
+        d = lambda name, v, f, gain=relu_gain: nn.dense(
+            s.child(name), v, f, kernel_init=ortho(gain))
         out = {}
         if self.use_categorical:
-            logits = self.actor_head(nn.relu(self.actor_fc(x)))
+            h = jax.nn.relu(d('actor_fc', x, 256))
+            logits = d('actor_head', h, self.num_cells + 1, 1.0)
             amask = self._sketch_logits_mask(obs)
             out['logits'] = jnp.where(
                 amask, jnp.finfo(logits.dtype).min, logits)
         else:
-            out['alpha'] = 1.0 + nn.softplus(self.fc_alpha(x))
-            out['beta'] = 1.0 + nn.softplus(self.fc_beta(x))
+            out['alpha'] = 1.0 + jax.nn.softplus(
+                d('fc_alpha', x, self.action_dim))
+            out['beta'] = 1.0 + jax.nn.softplus(
+                d('fc_beta', x, self.action_dim))
         if self.use_goal:
-            out['goal_logits'] = self.goal_head(nn.relu(self.goal_fc(x)))
+            h = jax.nn.relu(d('goal_fc', x, 256))
+            out['goal_logits'] = d('goal_head', h, self.num_goal_bins, 1.0)
             out['is_goal_step'] = self._is_goal_step(obs)
-        value = self.critic_head(x).squeeze(-1)
+        value = d('critic_head', x, 1, 1.0).squeeze(-1)
         return out, value, carry
 
-    def sequence(self, obs, carry, masks):
-        return self(obs, carry, masks)
+    def sequence(self, s: Scope, obs, carry, masks):
+        return self(s, obs, carry, masks)
 
     def _cells_to_xys(self, a):
         """Flat index (0 = skip, 1.. = cell) → processed (x, y, skip)

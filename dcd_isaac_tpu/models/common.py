@@ -1,4 +1,4 @@
-"""Shared model components (flax.linen).
+"""Shared model components (plain JAX layers from ``models/nn.py``).
 
 Re-designs reference models/common.py for JAX: the masked chunked-RNN forward
 (reference RNN.forward's host-side zero-mask segmentation, common.py:142-209)
@@ -15,15 +15,14 @@ Initialization parity with the reference:
 
 from __future__ import annotations
 
-from typing import Any, Sequence, Tuple
+import dataclasses
+from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
-ortho = nn.initializers.orthogonal
-xavier_uniform = nn.initializers.xavier_uniform
-zeros = nn.initializers.zeros
+from . import nn
+from .nn import Scope, ortho, zeros
 
 Carry = Any
 
@@ -31,7 +30,7 @@ Carry = Any
 def rnn_initial_carry(arch: str, hidden_size: int,
                       batch_dims: Tuple[int, ...],
                       dtype=jnp.float32) -> Carry:
-    """Zero carry for an RNN arch; plain function (safe outside module scope)."""
+    """Zero carry for an RNN arch."""
     shape = (*batch_dims, hidden_size)
     if arch == 'lstm':
         return (jnp.zeros(shape, dtype), jnp.zeros(shape, dtype))
@@ -40,40 +39,21 @@ def rnn_initial_carry(arch: str, hidden_size: int,
     return ()
 
 
-def mlp(sizes: Sequence[int], name_prefix: str = 'fc', dtype=jnp.float32):
-    """Tanh MLP trunk matching make_fc_layers_with_hidden_sizes."""
-    layers = []
-    for i, size in enumerate(sizes[1:]):
-        layers.append(nn.Dense(size, kernel_init=ortho(jnp.sqrt(2)),
-                               bias_init=zeros, dtype=dtype,
-                               name=f'{name_prefix}{i}'))
-        layers.append(nn.tanh)
-    return nn.Sequential(layers) if layers else (lambda x: x)
-
-
-class RNNCore(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class RNNCore:
     """LSTM/GRU core with mask-reset semantics, or identity when arch=None.
 
     The carry is a pytree: LSTM → (c, h), GRU → h, none → ().  Hidden state is
     multiplied by ``mask`` (0 at episode starts) before every cell step, which
-    reproduces the reference's zero-reset chunking exactly.
+    reproduces the reference's zero-reset chunking exactly.  Methods take the
+    core's own scope; the cell's parameters live under ``cell``.
     """
     hidden_size: int = 256
     arch: str = 'lstm'  # 'lstm' | 'gru' | 'none'
     dtype: Any = jnp.float32   # compute dtype (params stay float32)
 
-    def setup(self):
-        kw = dict(
-            kernel_init=ortho(1.0),
-            recurrent_kernel_init=ortho(1.0),
-            bias_init=zeros,
-            dtype=self.dtype,
-        )
-        if self.arch == 'lstm':
-            self.cell = nn.OptimizedLSTMCell(self.hidden_size, **kw)
-        elif self.arch == 'gru':
-            self.cell = nn.GRUCell(self.hidden_size, **kw)
-        elif self.arch not in (None, 'none', ''):
+    def __post_init__(self):
+        if self.arch not in ('lstm', 'gru', None, 'none', ''):
             raise ValueError(f'Unsupported RNN arch {self.arch}')
 
     @property
@@ -88,41 +68,40 @@ class RNNCore(nn.Module):
         m = mask[..., None]
         return jax.tree.map(lambda c: (c * m.astype(c.dtype)), carry)
 
-    def __call__(self, carry: Carry, x: jnp.ndarray, mask: jnp.ndarray):
+    def __call__(self, s: Scope, carry: Carry, x: jnp.ndarray,
+                 mask: jnp.ndarray):
         """One step: (carry, (B, F) input, (B,) mask) → (carry, (B, H))."""
         if not self.is_recurrent:
             return carry, x
         carry = self._masked(carry, mask)
-        carry, out = self.cell(carry, x.astype(self.dtype))
-        return carry, out
+        cell = nn.lstm_cell if self.arch == 'lstm' else nn.gru_cell
+        return cell(s.child('cell'), carry, x.astype(self.dtype),
+                    kernel_init=ortho(1.0), recurrent_kernel_init=ortho(1.0),
+                    bias_init=zeros, dtype=self.dtype)
 
-    def sequence(self, carry: Carry, xs: jnp.ndarray, masks: jnp.ndarray):
-        """Scan over time: ((T, B, F), (T, B)) → (carry, (T, B, H)).
-
-        Only valid on a bound module (params created via the one-step path
-        first); model ``init`` must go through ``__call__``.
-        """
+    def sequence(self, s: Scope, carry: Carry, xs: jnp.ndarray,
+                 masks: jnp.ndarray):
+        """Scan over time: ((T, B, F), (T, B)) → (carry, (T, B, H))."""
         if not self.is_recurrent:
             return carry, xs
         return jax.lax.scan(
-            lambda c, i: self(c, i[0], i[1]), carry, (xs, masks)
-        )
+            lambda c, i: self(s, c, i[0], i[1]), carry, (xs, masks))
 
     # --- precomputed-input LSTM path (training-time BPTT) -----------------
     # The input projection x@W_in has no time dependence: hoisting it out of
     # the scan turns T sequential big matmuls (dominant for the teacher's
-    # 21632-dim conv embedding) into one giant MXU-friendly matmul, leaving
-    # only the tiny h@W_h recurrence inside the scan.
-    def lstm_input_kernel(self) -> jnp.ndarray:
+    # 21632-dim conv embedding) into one large batched matmul, leaving only
+    # the small h@W_h recurrence inside the scan.
+    def lstm_input_kernel(self, s: Scope) -> jnp.ndarray:
         """(F, 4H) input kernel assembled from the cell params (gate order
-        i, f, g, o — flax LSTMCell convention)."""
+        i, f, g, o)."""
         assert self.arch == 'lstm'
-        p = self.cell.variables['params']
+        p = s.params['cell']
         return jnp.concatenate(
             [p[k]['kernel'] for k in ('ii', 'if', 'ig', 'io')],
             axis=1).astype(self.dtype)
 
-    def sequence_zx(self, carry: Carry, zx: jnp.ndarray,
+    def sequence_zx(self, s: Scope, carry: Carry, zx: jnp.ndarray,
                     masks: jnp.ndarray):
         """LSTM scan over precomputed input projections.
 
@@ -130,7 +109,7 @@ class RNNCore(nn.Module):
         equivalent to ``sequence`` (same params, same math).
         """
         assert self.arch == 'lstm'
-        p = self.cell.variables['params']
+        p = s.params['cell']
         Wh = jnp.concatenate(
             [p[k]['kernel'] for k in ('hi', 'hf', 'hg', 'ho')],
             axis=1).astype(self.dtype)

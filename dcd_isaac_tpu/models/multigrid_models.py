@@ -1,4 +1,4 @@
-"""MultiGrid actor-critic networks (flax.linen).
+"""MultiGrid actor-critic networks.
 
 Architecture parity with reference models/multigrid_models.py:15-186:
 Conv(k3, VALID) on the (scaled) grid image → flatten → ReLU, concat one-hot
@@ -17,15 +17,18 @@ straight from the env engine without a host-side wrapper stage.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
-from .common import RNNCore, mlp, ortho, rnn_initial_carry, xavier_uniform, zeros
+from . import nn
+from .common import RNNCore, rnn_initial_carry
+from .nn import Scope, ortho, xavier_uniform, zeros
 
 
+@dataclasses.dataclass(frozen=True)
 class MultigridNetwork(nn.Module):
     num_actions: int
     scalar_dim: int = 4
@@ -41,28 +44,10 @@ class MultigridNetwork(nn.Module):
 
     dist_type = 'categorical'
 
-    def setup(self):
-        self.conv = nn.Conv(
-            self.conv_filters, (self.conv_kernel, self.conv_kernel),
-            padding='VALID', kernel_init=xavier_uniform(), bias_init=zeros,
-            dtype=self.dtype, name='image_conv',
-        )
-        self.scalar_embed = nn.Dense(
-            self.scalar_fc, dtype=self.dtype, name='scalar_embed')
-        self.core = RNNCore(self.recurrent_hidden_size, self.recurrent_arch,
-                            dtype=self.dtype)
-        self.actor_trunk = mlp(
-            (self.recurrent_hidden_size, *self.actor_fc_layers), 'actor_fc',
-            dtype=self.dtype)
-        self.actor_head = nn.Dense(
-            self.num_actions, kernel_init=ortho(0.01), bias_init=zeros,
-            dtype=self.dtype, name='actor_head')
-        self.critic_trunk = mlp(
-            (self.recurrent_hidden_size, *self.value_fc_layers), 'critic_fc',
-            dtype=self.dtype)
-        self.critic_head = nn.Dense(
-            1, kernel_init=ortho(1.0), bias_init=zeros, dtype=self.dtype,
-            name='critic_head')
+    @property
+    def core(self) -> RNNCore:
+        return RNNCore(self.recurrent_hidden_size, self.recurrent_arch,
+                       dtype=self.dtype)
 
     @property
     def is_recurrent(self) -> bool:
@@ -72,37 +57,52 @@ class MultigridNetwork(nn.Module):
         return rnn_initial_carry(
             self.recurrent_arch, self.recurrent_hidden_size, batch_dims)
 
-    def _embed(self, obs: dict) -> jnp.ndarray:
+    def _scalar_embed(self, s: Scope, onehot):
+        return nn.dense(s.child('scalar_embed'), onehot, self.scalar_fc,
+                        dtype=self.dtype)
+
+    def _embed(self, s: Scope, obs: dict) -> jnp.ndarray:
         img = obs['image'].astype(self.dtype) / 10.0
-        x = self.conv(img)
+        k = self.conv_kernel
+        x = nn.conv(s.child('image_conv'), img, self.conv_filters, (k, k),
+                    kernel_init=xavier_uniform(), dtype=self.dtype)
         x = x.reshape(*x.shape[:-3], -1)
-        x = nn.relu(x)
+        x = jax.nn.relu(x)
         scalar = obs.get('direction', obs.get('time_step'))
         parts = [x]
         if scalar is not None and self.scalar_dim:
             onehot = jax.nn.one_hot(
                 scalar.astype(jnp.int32), self.scalar_dim, dtype=self.dtype)
-            parts.append(self.scalar_embed(onehot))
+            parts.append(self._scalar_embed(s, onehot))
         if self.random_z_dim:
             parts.append(obs['random_z'].astype(self.dtype))
         return jnp.concatenate(parts, axis=-1)
 
-    def _heads(self, core: jnp.ndarray):
+    def _actor(self, s: Scope, core: jnp.ndarray):
+        h = nn.mlp(s, core, self.actor_fc_layers, 'actor_fc', self.dtype)
+        return nn.dense(s.child('actor_head'), h, self.num_actions,
+                        kernel_init=ortho(0.01), dtype=self.dtype)
+
+    def _critic(self, s: Scope, x: jnp.ndarray):
+        h = nn.mlp(s, x, self.value_fc_layers, 'critic_fc', self.dtype)
+        return nn.dense(s.child('critic_head'), h, 1,
+                        kernel_init=ortho(1.0), dtype=self.dtype)
+
+    def _heads(self, s: Scope, core: jnp.ndarray, obs: dict):
         # heads return float32 regardless of compute dtype (losses, action
         # sampling and GAE stay full-precision)
-        logits = self.actor_head(self.actor_trunk(core)).astype(jnp.float32)
-        value = self.critic_head(
-            self.critic_trunk(core)).squeeze(-1).astype(jnp.float32)
+        logits = self._actor(s, core).astype(jnp.float32)
+        value = self._critic(s, core).squeeze(-1).astype(jnp.float32)
         return logits, value
 
-    def __call__(self, obs: dict, carry, mask: jnp.ndarray):
+    def __call__(self, s: Scope, obs: dict, carry, mask: jnp.ndarray):
         """Single batched step: obs (B, ...), mask (B,) → (logits, value, carry)."""
-        x = self._embed(obs)
-        carry, core = self.core(carry, x, mask)
-        logits, value = self._heads(core)
+        x = self._embed(s, obs)
+        carry, core = self.core(s.child('core'), carry, x, mask)
+        logits, value = self._heads(s, core, obs)
         return logits, value, carry
 
-    def _core_sequence(self, obs: dict, carry, masks: jnp.ndarray):
+    def _core_sequence(self, s: Scope, obs: dict, carry, masks: jnp.ndarray):
         """(T, B, …) obs → (final_carry, (T, B, H) core outputs).
 
         LSTM: the input projection is hoisted out of the time scan — the
@@ -117,15 +117,17 @@ class MultigridNetwork(nn.Module):
         embed_dim = ((img_shape[-3] - self.conv_kernel + 1)
                      * (img_shape[-2] - self.conv_kernel + 1)
                      * self.conv_filters)
+        core_s = s.child('core')
         # Hoist the input projection only when the embedding is wide enough
         # that per-step x@W_in matmuls dominate (the 21k-dim teacher); for
         # narrow embeds (student, 149-dim) the per-step remat scan is
         # cheaper than materializing the (T, B, 4H) zx residual.
         if self.recurrent_arch == 'lstm' and embed_dim >= 4096:
-            Wi = self.core.lstm_input_kernel()
+            Wi = self.core.lstm_input_kernel(core_s)
 
             # chunk size: largest divisor of T bounding the transient
-            # (chunk·B·embed_dim) activation to ~0.5 GB
+            # (chunk·B·embed_dim) activation to ~0.5 GB (a budget not yet
+            # re-measured against device memory on the GPU)
             B = img_shape[1]
             budget = int(5e8 // max(B * embed_dim * 4, 1)) or 1
             chunk = 1
@@ -134,45 +136,38 @@ class MultigridNetwork(nn.Module):
                     chunk = c
 
             def zx_chunk(o):
-                # The (21k, 4H) projection is the teacher update's FLOPs
-                # bottleneck (PERF.md bottleneck 2).  Under --bf16 it runs
-                # in bf16 on both passes: casting the OUTPUT back to f32
-                # makes the backward matmuls consume bf16 cotangents too,
-                # so fwd and bwd all hit the MXU's bf16 path (f32
-                # accumulation is internal to the MXU).  The precision
-                # follows the model compute dtype — with --bf16 false the
-                # whole projection stays f32 (VERDICT r3 weak #4).
-                emb = self._embed(o).astype(self.dtype)
+                # The (21k, 4H) projection is the teacher update's largest
+                # matmul.  Under --bf16 it runs in bf16 on both passes:
+                # casting the OUTPUT back to f32 makes the backward matmuls
+                # consume bf16 cotangents too, so forward and backward all
+                # take the bf16 matrix path with f32 accumulation.  The
+                # precision follows the model compute dtype — with --bf16
+                # false the whole projection stays f32.
+                emb = self._embed(s, o).astype(self.dtype)
                 return (emb @ Wi.astype(self.dtype)).astype(jnp.float32)
 
             obs_c = jax.tree.map(
                 lambda a: a.reshape(T // chunk, chunk, *a.shape[1:]), obs)
             zx = jax.lax.map(jax.checkpoint(zx_chunk), obs_c)
             zx = zx.reshape(T, B, -1)
-            return self.core.sequence_zx(carry, zx, masks)
+            return self.core.sequence_zx(core_s, carry, zx, masks)
 
-        def body(mdl, carry, inp):
+        def body(carry, inp):
             o, m = inp
-            x = mdl._embed(o)
-            carry, h = mdl.core(carry, x, m)
-            return carry, h
+            x = self._embed(s, o)
+            return self.core(core_s, carry, x, m)
 
-        scan = nn.scan(
-            nn.remat(body, prevent_cse=False),
-            variable_broadcast='params',
-            split_rngs={'params': False},
-            in_axes=0, out_axes=0)
-        return scan(self, carry, (obs, masks))
+        return jax.lax.scan(
+            jax.checkpoint(body, prevent_cse=False), carry, (obs, masks))
 
-    def sequence(self, obs: dict, carry, masks: jnp.ndarray):
+    def sequence(self, s: Scope, obs: dict, carry, masks: jnp.ndarray):
         """(T, B, ...) BPTT forward → (logits_T, values_T, final_carry)."""
         if not self.is_recurrent:
-            x = self._embed(obs)
-            carry, core = self.core.sequence(carry, x, masks)
-            logits, value = self._heads(core)
-            return logits, value, carry
-        carry, core = self._core_sequence(obs, carry, masks)
-        logits, value = self._heads(core)
+            x = self._embed(s, obs)
+            carry, core = self.core.sequence(s.child('core'), carry, x, masks)
+        else:
+            carry, core = self._core_sequence(s, obs, carry, masks)
+        logits, value = self._heads(s, core, obs)
         return logits, value, carry
 
     # --- distribution protocol (pure; safe unbound) ----------------------
@@ -191,6 +186,7 @@ class MultigridNetwork(nn.Module):
         return categorical_mode(logits)
 
 
+@dataclasses.dataclass(frozen=True)
 class MultigridGlobalCriticNetwork(MultigridNetwork):
     """Student with a full-grid critic trunk (reference
     multigrid_global_critic_models.py:15-223).
@@ -202,56 +198,31 @@ class MultigridGlobalCriticNetwork(MultigridNetwork):
     """
     use_global_policy: bool = False
 
-    def setup(self):
-        super().setup()
-        self.global_conv1 = nn.Conv(
-            8, (2, 2), strides=(2, 2), padding='VALID',
-            kernel_init=xavier_uniform(), bias_init=zeros,
-            dtype=self.dtype, name='global_conv1')
-        self.global_conv2 = nn.Conv(
-            16, (3, 3), strides=(1, 1), padding='VALID',
-            kernel_init=xavier_uniform(), bias_init=zeros,
-            dtype=self.dtype, name='global_conv2')
-
-    def _global_embed(self, obs):
+    def _global_embed(self, s: Scope, obs):
         g = obs['full_obs'].astype(self.dtype) / 10.0
-        x = self.global_conv2(self.global_conv1(g))
+        x = nn.conv(s.child('global_conv1'), g, 8, (2, 2), (2, 2),
+                    kernel_init=xavier_uniform(), dtype=self.dtype)
+        x = nn.conv(s.child('global_conv2'), x, 16, (3, 3),
+                    kernel_init=xavier_uniform(), dtype=self.dtype)
         return x.reshape(*x.shape[:-3], -1)
 
-    def _embed(self, obs):
+    def _embed(self, s: Scope, obs):
         if self.use_global_policy:
             scalar = obs.get('direction')
-            parts = [nn.relu(self._global_embed(obs))]
+            parts = [jax.nn.relu(self._global_embed(s, obs))]
             if scalar is not None and self.scalar_dim:
                 onehot = jax.nn.one_hot(
                     scalar.astype(jnp.int32), self.scalar_dim)
-                parts.append(self.scalar_embed(onehot))
+                parts.append(self._scalar_embed(s, onehot))
             return jnp.concatenate(parts, axis=-1)
-        return super()._embed(obs)
+        return super()._embed(s, obs)
 
-    def _heads_with_obs(self, core, obs):
-        logits = self.actor_head(self.actor_trunk(core)).astype(jnp.float32)
+    def _heads(self, s: Scope, core, obs):
+        logits = self._actor(s, core).astype(jnp.float32)
         if self.use_global_policy:
             critic_in = core
         else:
             critic_in = jnp.concatenate(
-                [self._global_embed(obs), core], axis=-1)
-        value = self.critic_head(
-            self.critic_trunk(critic_in)).squeeze(-1).astype(jnp.float32)
+                [self._global_embed(s, obs), core], axis=-1)
+        value = self._critic(s, critic_in).squeeze(-1).astype(jnp.float32)
         return logits, value
-
-    def __call__(self, obs, carry, mask):
-        x = self._embed(obs)
-        carry, core = self.core(carry, x, mask)
-        logits, value = self._heads_with_obs(core, obs)
-        return logits, value, carry
-
-    def sequence(self, obs, carry, masks):
-        if not self.is_recurrent:
-            x = self._embed(obs)
-            carry, core = self.core.sequence(carry, x, masks)
-            logits, value = self._heads_with_obs(core, obs)
-            return logits, value, carry
-        carry, core = self._core_sequence(obs, carry, masks)
-        logits, value = self._heads_with_obs(core, obs)
-        return logits, value, carry

@@ -11,7 +11,8 @@ from __future__ import annotations
 from typing import Any, Tuple
 
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils import struct
 
 
 @struct.dataclass

@@ -1,4 +1,4 @@
-"""BipedalWalker actor-critic networks (flax).
+"""BipedalWalker actor-critic networks.
 
 Parity with reference models/walker_models.py: student = MLPBase twin 64-64
 tanh trunks → DiagGaussian over 4 motor torques (state-independent log-std,
@@ -10,48 +10,50 @@ exactly, including that quirk).
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional
 
-import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
-from .common import RNNCore, ortho, rnn_initial_carry, zeros
+from . import nn
+from .common import RNNCore, rnn_initial_carry
 from .distributions import normal_entropy, normal_log_prob, normal_sample
+from .nn import Scope, ortho, zeros
 
 
-class DiagGaussianHead(nn.Module):
-    num_outputs: int
-
-    @nn.compact
-    def __call__(self, x):
-        mean = nn.Dense(self.num_outputs, kernel_init=ortho(1.0),
-                        bias_init=zeros, name='mean')(x)
-        log_std = self.param('log_std', zeros, (self.num_outputs,))
-        return {'mean': mean, 'log_std': jnp.broadcast_to(
-            log_std, mean.shape)}
+def diag_gaussian_head(s: Scope, x, num_outputs: int):
+    """Mean layer ``mean`` + state-independent ``log_std`` (zero-init)."""
+    mean = nn.dense(s.child('mean'), x, num_outputs, kernel_init=ortho(1.0))
+    log_std = s.param('log_std', zeros, (num_outputs,))
+    return {'mean': mean, 'log_std': jnp.broadcast_to(log_std, mean.shape)}
 
 
+def twin_trunks(s: Scope, x, hidden: int):
+    """Two-layer tanh actor and critic trunks (actor1/2, critic1/2)."""
+    d = lambda name, v: jnp.tanh(nn.dense(
+        s.child(name), v, hidden, kernel_init=ortho(jnp.sqrt(2))))
+    return d('actor2', d('actor1', x)), d('critic2', d('critic1', x))
+
+
+def walker_heads(s: Scope, ha, hc, action_dim: int):
+    value = nn.dense(s.child('critic_head'), hc, 1,
+                     kernel_init=ortho(1.0)).squeeze(-1)
+    return diag_gaussian_head(s.child('dist'), ha, action_dim), value
+
+
+@dataclasses.dataclass(frozen=True)
 class WalkerStudentPolicy(nn.Module):
     """MLPBase + DiagGaussian (walker_models.py:113-167)."""
     action_dim: int = 4
     hidden_size: int = 64
-    recurrent_arch: str = None   # optional 'gru'
+    recurrent_arch: Optional[str] = None   # optional 'gru'
 
     dist_type = 'normal'
     squash_tanh = False
 
-    def setup(self):
-        h = self.hidden_size
-        init = ortho(jnp.sqrt(2))
-        self.actor1 = nn.Dense(h, kernel_init=init, bias_init=zeros)
-        self.actor2 = nn.Dense(h, kernel_init=init, bias_init=zeros)
-        self.critic1 = nn.Dense(h, kernel_init=init, bias_init=zeros)
-        self.critic2 = nn.Dense(h, kernel_init=init, bias_init=zeros)
-        self.critic_head = nn.Dense(1, kernel_init=ortho(1.0),
-                                    bias_init=zeros, name='critic_head')
-        self.dist = DiagGaussianHead(self.action_dim)
-        self.core = RNNCore(self.hidden_size, self.recurrent_arch or 'none')
+    @property
+    def core(self) -> RNNCore:
+        return RNNCore(self.hidden_size, self.recurrent_arch or 'none')
 
     @property
     def is_recurrent(self):
@@ -61,27 +63,21 @@ class WalkerStudentPolicy(nn.Module):
         return rnn_initial_carry(
             self.recurrent_arch or 'none', self.hidden_size, batch_dims)
 
-    def _trunks(self, x, carry, mask):
-        if self.is_recurrent:
-            carry, x = self.core(carry, x, mask)
-        ha = nn.tanh(self.actor2(nn.tanh(self.actor1(x))))
-        hc = nn.tanh(self.critic2(nn.tanh(self.critic1(x))))
-        return ha, hc, carry
-
-    def __call__(self, obs, carry, mask):
-        x = obs if not isinstance(obs, dict) else obs['obs']
-        ha, hc, carry = self._trunks(x, carry, mask)
-        value = self.critic_head(hc).squeeze(-1)
-        return self.dist(ha), value, carry
-
-    def sequence(self, obs, carry, masks):
+    def __call__(self, s: Scope, obs, carry, mask):
         x = obs if not isinstance(obs, dict) else obs['obs']
         if self.is_recurrent:
-            carry, x = self.core.sequence(carry, x, masks)
-        ha = nn.tanh(self.actor2(nn.tanh(self.actor1(x))))
-        hc = nn.tanh(self.critic2(nn.tanh(self.critic1(x))))
-        value = self.critic_head(hc).squeeze(-1)
-        return self.dist(ha), value, carry
+            carry, x = self.core(s.child('core'), carry, x, mask)
+        ha, hc = twin_trunks(s, x, self.hidden_size)
+        dist, value = walker_heads(s, ha, hc, self.action_dim)
+        return dist, value, carry
+
+    def sequence(self, s: Scope, obs, carry, masks):
+        x = obs if not isinstance(obs, dict) else obs['obs']
+        if self.is_recurrent:
+            carry, x = self.core.sequence(s.child('core'), carry, x, masks)
+        ha, hc = twin_trunks(s, x, self.hidden_size)
+        dist, value = walker_heads(s, ha, hc, self.action_dim)
+        return dist, value, carry
 
     # --- distribution protocol (pure; safe unbound) --------------------
     def sample_action(self, rng, out):
@@ -100,6 +96,7 @@ class WalkerStudentPolicy(nn.Module):
         return out['mean']
 
 
+@dataclasses.dataclass(frozen=True)
 class WalkerAdversaryPolicy(nn.Module):
     """Teacher MLP (walker_models.py:170-256); tanh-squashed design actions."""
     design_dim: int = 8
@@ -110,17 +107,6 @@ class WalkerAdversaryPolicy(nn.Module):
     dist_type = 'normal'
     squash_tanh = True
     recurrent_arch = None
-
-    def setup(self):
-        h = self.hidden_size
-        init = ortho(jnp.sqrt(2))
-        self.actor1 = nn.Dense(h, kernel_init=init, bias_init=zeros)
-        self.actor2 = nn.Dense(h, kernel_init=init, bias_init=zeros)
-        self.critic1 = nn.Dense(h, kernel_init=init, bias_init=zeros)
-        self.critic2 = nn.Dense(h, kernel_init=init, bias_init=zeros)
-        self.critic_head = nn.Dense(1, kernel_init=ortho(1.0),
-                                    bias_init=zeros, name='critic_head')
-        self.dist = DiagGaussianHead(self.action_dim)
 
     @property
     def is_recurrent(self):
@@ -136,15 +122,13 @@ class WalkerAdversaryPolicy(nn.Module):
             obs['time_step'].astype(jnp.float32)[..., None],
         ], axis=-1)
 
-    def __call__(self, obs, carry, mask):
-        x = self._embed(obs)
-        ha = nn.tanh(self.actor2(nn.tanh(self.actor1(x))))
-        hc = nn.tanh(self.critic2(nn.tanh(self.critic1(x))))
-        value = self.critic_head(hc).squeeze(-1)
-        return self.dist(ha), value, carry
+    def __call__(self, s: Scope, obs, carry, mask):
+        ha, hc = twin_trunks(s, self._embed(obs), self.hidden_size)
+        dist, value = walker_heads(s, ha, hc, self.action_dim)
+        return dist, value, carry
 
-    def sequence(self, obs, carry, masks):
-        return self(obs, carry, masks)
+    def sequence(self, s: Scope, obs, carry, masks):
+        return self(s, obs, carry, masks)
 
     def sample_action(self, rng, out):
         a = jnp.tanh(normal_sample(rng, out['mean'], out['log_std']))

@@ -4,8 +4,9 @@ The DCD workload is an actor-learner fused program whose natural parallel
 axis is the env batch (SURVEY.md §2.9): envs, rollouts and PPO minibatches
 shard over a 'dp' mesh axis; model params and PLR buffers are replicated
 (models are <1M params; the buffer is read-mostly).  XLA inserts psum /
-all-gather collectives over ICI for the gradient reduction and the global
-minibatch permutations.
+all-gather collectives over the device interconnect (NVLink between the
+GPUs of one host) for the gradient reduction and the global minibatch
+permutations.
 
 TP/PP/SP/EP axes are not needed for parity with the reference (no large
 matmuls, no attention; SURVEY.md §5.7) — the mesh is built with named axes so
@@ -87,6 +88,18 @@ def place_runner_state(state, mesh: Mesh, num_processes: int,
         return jax.device_put(x, NamedSharding(mesh, P()))
 
     return jax.tree.map(put, state)
+
+
+def placement_summary(tree) -> dict:
+    """{number of devices a leaf spans: number of such leaves} over the
+    array leaves of ``tree`` — shows whether any leaf sits whole on one
+    device of a mesh."""
+    counts: dict = {}
+    for x in jax.tree.leaves(tree):
+        if isinstance(x, jax.Array):
+            n = len(x.sharding.device_set)
+            counts[n] = counts.get(n, 0) + 1
+    return counts
 
 
 def shard_batch(tree, mesh: Mesh, axis_name: str = 'dp'):

@@ -1,6 +1,6 @@
 """The DCD cycle: teacher → student(s) → regret → curriculum updates.
 
-TPU-native re-design of reference envs/runners/adversarial_runner.py.  The
+JAX re-design of reference envs/runners/adversarial_runner.py.  The
 reference's Python orchestration over subprocess envs becomes three compiled
 programs — ``cycle_generate`` (new levels: DR reset or constructive teacher
 scan), ``cycle_replay`` (PLR replay with in-scan level resampling) and
@@ -21,7 +21,6 @@ from typing import Any, Dict, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ..algos.ppo import (
     AgentTrainState, PPOConfig, init_agent_state, make_ppo_update,
@@ -34,6 +33,7 @@ from ..algos.storage import batched_value_loss, compute_gae
 from ..level_replay import plr as plr_lib
 from ..models import popart as popart_lib
 from ..models.multigrid_models import MultigridNetwork
+from ..utils import struct
 
 
 @struct.dataclass
@@ -204,7 +204,9 @@ class AdversarialRunner:
 
         self._jit_cache = {}
         self.mesh = None               # set via attach_mesh (--mesh_shape)
-        self.state = self._init_state(rng)
+        # One compiled program: run eagerly, the env resets and param
+        # inits dispatch (and, on a GPU, compile) hundreds of small ops.
+        self.state = jax.jit(self._init_state)(rng)
 
     # ------------------------------------------------------------------
     def attach_mesh(self, mesh):
@@ -910,9 +912,23 @@ class AdversarialRunner:
             import os as _os
             donate = ((0,) if jax.default_backend() != 'cpu'
                       and not _os.environ.get('DCD_NO_DONATE') else ())
-            self._jit_cache[name] = jax.jit(
-                builder(), donate_argnums=donate)
+            fn = builder()
+            if self.mesh is not None:
+                fn = self._keep_state_placement(fn)
+            self._jit_cache[name] = jax.jit(fn, donate_argnums=donate)
         return self._jit_cache[name]
+
+    def _keep_state_placement(self, fn):
+        """Return the state with the shardings it came in with. Left to
+        itself, XLA may choose other output shardings, and the next call
+        then compiles the program again for them."""
+        shardings = jax.tree.map(lambda x: x.sharding, self.state)
+
+        def pinned(state, *args):
+            state, *rest = fn(state, *args)
+            return (jax.lax.with_sharding_constraint(state, shardings),
+                    *rest)
+        return pinned
 
     def run(self) -> Dict[str, float]:
         """One full DCD cycle; returns host-side stats dict."""

@@ -29,8 +29,8 @@ def main(argv=None):
     from .utils.compile_cache import enable_persistent_cache
     enable_persistent_cache()
 
-    # Multi-host pod slice: one SPMD program over DCN-connected hosts
-    # (SURVEY.md §5.8). Must run before any device use.
+    # Multi-host: one SPMD program over several hosts (SURVEY.md §5.8).
+    # Must run before any device use.
     if args.multihost:
         kw = {}
         if args.coordinator_address:
@@ -52,8 +52,8 @@ def main(argv=None):
 
     runner = AdversarialRunner(args, env, models, rng)
 
-    # SPMD scale-out over a device mesh (--mesh_shape dp:8): env batch
-    # shards over ICI, params replicate, XLA psums gradients.
+    # SPMD scale-out over a device mesh (--mesh_shape dp:4): the env batch
+    # shards over the devices, params replicate, XLA psums gradients.
     if args.mesh_shape:
         from .parallel.mesh import make_mesh_from_spec
         mesh = make_mesh_from_spec(args.mesh_shape)
@@ -63,7 +63,7 @@ def main(argv=None):
         runner.attach_mesh(mesh)
 
     log_dir = os.path.expandvars(os.path.expanduser(args.log_dir))
-    # single-writer discipline on pod slices: only process 0 owns the
+    # single-writer discipline across hosts: only process 0 owns the
     # xpid dir; other hosts run the same SPMD program silently
     if is_main:
         filewriter = FileWriter(
@@ -116,7 +116,7 @@ def main(argv=None):
         return runner
 
     # jax.profiler trace window: updates [2, 5) after compile warm-up
-    # (VERDICT r1 item 2; the reference has no profiler at all, SURVEY §5.1)
+    # (the reference has no profiler at all, SURVEY §5.1)
     profile_dir = os.path.expanduser(args.profile_dir or '')
     prof_start = initial_update + 2
     prof_stop = min(prof_start + 3, num_updates)
@@ -209,6 +209,15 @@ def _finalize(args, runner, evaluator, filewriter, models, checkpoint_path):
             models['agent'], runner.state.agent.params, seed=args.seed)
         filewriter.log_final_test_eval(final_stats)
     filewriter.mark_completed()
+    if jax.process_index() == 0:
+        from .utils.device import device_report
+        print(device_report(), flush=True)
+        if runner.mesh is not None:
+            from .parallel.mesh import placement_summary
+            # {devices spanned: leaves}; a leaf on fewer devices than the
+            # mesh holds sits whole on one of them
+            print(f'mesh placement {placement_summary(runner.state)}',
+                  flush=True)
 
 
 def _run_batched_loop(args, runner, evaluator, filewriter, models,

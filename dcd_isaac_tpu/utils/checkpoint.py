@@ -5,8 +5,9 @@ state_dict): single-writer tmp-then-replace atomic writes, `_index` archive
 copies, and the curriculum state (PLR buffers) saved alongside model/optimizer
 state so training is fully resumable.
 
-Serialization is flax msgpack over the RunnerState pytree (device arrays are
-pulled to host once per checkpoint).
+The file is a pickle of a dict. Its ``'state'`` entry maps each leaf's key
+path in the RunnerState pytree (``jax.tree_util.keystr``) to a numpy array;
+device arrays are pulled to host once per checkpoint.
 """
 
 from __future__ import annotations
@@ -16,15 +17,15 @@ import pickle
 from typing import Any, Optional
 
 import jax
-from flax import serialization
+import numpy as np
 
 
 def _gather_to_host(runner_state: Any):
     """Pull the full state to host memory.
 
-    Single-host: plain device_get.  Multi-host (pod slice): sharded
-    leaves are not fully addressable, so each is first re-laid-out fully
-    replicated (an all-gather over DCN executed by EVERY process — call
+    Single-host: plain device_get.  Multi-host: sharded leaves are not
+    fully addressable, so each is first re-laid-out fully replicated (an
+    all-gather across hosts executed by EVERY process — call
     this from all ranks) and the local replica is read.
     """
     if jax.process_count() == 1:
@@ -52,6 +53,42 @@ def _gather_to_host(runner_state: Any):
 LEVEL_ENCODING_VERSION = 2
 _SEEDED_LEVEL_FAMILIES = ('Walker', 'CarRacing')
 
+# Payload layout. Format 2 stores the key-path -> array dict under 'state';
+# files without a 'format' field hold flax msgpack bytes under 'pytree',
+# which this build cannot read.
+CHECKPOINT_FORMAT = 2
+
+
+def _check_format(payload: dict, path: str):
+    fmt = payload.get('format', 1)
+    if fmt != CHECKPOINT_FORMAT:
+        raise ValueError(
+            f'{path} is checkpoint format {fmt} (flax msgpack); this build '
+            f'reads format {CHECKPOINT_FORMAT} (key-path -> array dict) '
+            'only. Restart the run from scratch.')
+
+
+def _to_arrays(state: Any) -> dict:
+    leaves = jax.tree_util.tree_flatten_with_path(state)[0]
+    return {jax.tree_util.keystr(p): np.asarray(v) for p, v in leaves}
+
+
+def _from_arrays(template: Any, arrays: dict, prefix: str = ''):
+    """Rebuild ``template``'s structure from the stored arrays whose keys
+    are ``prefix`` + each leaf's key path."""
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(template)
+    out = []
+    for p, leaf in leaves:
+        key = prefix + jax.tree_util.keystr(p)
+        if key not in arrays:
+            raise KeyError(f'checkpoint has no entry {key}')
+        a = arrays[key]
+        if a.shape != np.shape(leaf):
+            raise ValueError(f'checkpoint entry {key} has shape {a.shape}, '
+                             f'expected {np.shape(leaf)}')
+        out.append(a)
+    return jax.tree_util.tree_unflatten(treedef, out)
+
 
 def save_checkpoint(path: str, runner_state: Any, host_state: dict):
     """Atomic write of (pytree bytes, host counters).
@@ -63,7 +100,8 @@ def save_checkpoint(path: str, runner_state: Any, host_state: dict):
     state = _gather_to_host(runner_state)
     if jax.process_index() == 0:
         payload = {
-            'pytree': serialization.to_bytes(state),
+            'format': CHECKPOINT_FORMAT,
+            'state': _to_arrays(state),
             'host': host_state,
             'level_encoding': LEVEL_ENCODING_VERSION,
         }
@@ -84,6 +122,8 @@ def load_checkpoint(path: str, template: Any, env_name: Optional[str] = None):
     """
     with open(path, 'rb') as f:
         payload = pickle.load(f)
+    # the encoding check comes first: a pre-v2 file is also pre-format-2,
+    # and the encoding message is the one that says what went wrong
     if env_name and any(f in env_name for f in _SEEDED_LEVEL_FAMILIES):
         ver = payload.get('level_encoding', 1)
         if ver != LEVEL_ENCODING_VERSION and not os.environ.get(
@@ -96,8 +136,8 @@ def load_checkpoint(path: str, template: Any, env_name: Optional[str] = None):
                 'encoding, which it would silently misdecode. Restart the '
                 'run, or set DCD_ALLOW_STALE_LEVEL_ENCODING=1 to resume '
                 'anyway (safe IF the run was trained on value-cast code).')
-    state = serialization.from_bytes(template, payload['pytree'])
-    return state, payload['host']
+    _check_format(payload, path)
+    return _from_arrays(template, payload['state']), payload['host']
 
 
 def load_agent_finetune(path: str, agent_template: Any):
@@ -109,8 +149,8 @@ def load_agent_finetune(path: str, agent_template: Any):
     """
     with open(path, 'rb') as f:
         payload = pickle.load(f)
-    raw = serialization.msgpack_restore(payload['pytree'])
-    return serialization.from_state_dict(agent_template, raw['agent'])
+    _check_format(payload, path)
+    return _from_arrays(agent_template, payload['state'], prefix='.agent')
 
 
 def archive_path(base_path: str, index: int) -> str:

@@ -25,8 +25,9 @@ def resolve_bf16(args) -> bool:
 def make_model(args, env, agent_type: str):
     family = env_family(args.env_name)
     # --bf16: model compute in bfloat16 (params/losses/heads stay float32);
-    # on TPU this doubles MXU rate and halves HBM traffic for the hot
-    # teacher conv128→LSTM input projection
+    # meant to halve memory traffic and take the bf16 tensor-core path for
+    # the hot teacher conv128→LSTM input projection (chosen on the earlier
+    # pre-GPU build; not yet measured on the H100, ROADMAP C3)
     import jax.numpy as jnp
     dtype = jnp.bfloat16 if resolve_bf16(args) else jnp.float32
     if family == 'multigrid':

@@ -49,17 +49,30 @@ def data():
     return np.load(FIX)
 
 
+@jax.jit
+def _track_and_curve(cps):
+    curve = get_bezier_track(cps, rad=0.2, edgy=0.2, numpoints=40)
+    return build_track(curve), curve
+
+
 def our_track(cps):
-    curve = get_bezier_track(
-        jnp.asarray(cps, jnp.float32), rad=0.2, edgy=0.2, numpoints=40)
-    return build_track(curve), np.asarray(curve)
+    track, curve = _track_and_curve(jnp.asarray(cps, jnp.float32))
+    return track, np.asarray(curve)
 
 
 def replay(track, actions):
     """Inner-frame replay mirroring env.step's physics/reward core
     (no shaping/render), including reset's zero-action frame."""
-    T = len(actions)
+    pos, ang, vel, angvel, step_r, counts = _replay(
+        track, jnp.asarray(actions, jnp.float32))
+    hull = np.concatenate([
+        np.asarray(pos), np.asarray(ang)[:, None], np.asarray(vel),
+        np.asarray(angvel)[:, None]], axis=1)          # (T, 6)
+    return hull, np.asarray(step_r), np.asarray(counts)
 
+
+@jax.jit
+def _replay(track, actions):
     def frame(carry, act):
         car, visited, reward_total, prev = carry
         wp_road = on_road(track, wheel_positions(car))[0]
@@ -83,13 +96,9 @@ def replay(track, actions):
     visited, n_new, _, _ = _visit_tiles(track, visited, car)
     r0 = 1000.0 / jnp.maximum(track.n_points, 1) * n_new
 
-    (_, visited, _, _), (pos, ang, vel, angvel, step_r, counts) = (
-        jax.lax.scan(frame, (car, visited, r0, jnp.float32(0.0)),
-                     jnp.asarray(actions, jnp.float32)))
-    hull = np.concatenate([
-        np.asarray(pos), np.asarray(ang)[:, None], np.asarray(vel),
-        np.asarray(angvel)[:, None]], axis=1)          # (T, 6)
-    return hull, np.asarray(step_r), np.asarray(counts)
+    _, outs = jax.lax.scan(frame, (car, visited, r0, jnp.float32(0.0)),
+                           actions)
+    return outs
 
 
 def measure(data, name):

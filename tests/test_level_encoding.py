@@ -1,13 +1,13 @@
-"""Regression tests for the r4 walker 'TPU kernel fault' root cause.
+"""Regression tests for the r4 walker device-fault root cause.
 
 The fault: walker/carracing levels carry a terrain seed in a float32 lane.
 Early round 4 BITCAST raw uint32 bits into that lane, so ~0.4% of seed
 draws produced NaN/Inf bit patterns (and most of the rest decoded to
 garbage magnitudes ~1e35). A NaN-seeded level entering the PLR buffer
 poisons the replay path: NaN level params -> NaN terrain -> NaN physics ->
-NaN loss, which surfaces as FloatingPointError on CPU and as a TPU worker
-kernel fault mid-program on hardware (reproduced at cycle ~255 of the r4
-walker ACCEL campaign; see results/runs/r4_walker_retry.log and PERF.md).
+NaN loss, which surfaces as FloatingPointError on CPU and as a device
+fault mid-program on the earlier accelerator build (reproduced at cycle
+~255 of the r4 walker ACCEL campaign; RESULTS.md).
 
 The fix (envs/seeds.py): draw seeds from [0, 2^24) and VALUE-cast them, so
 every stored float is finite and round-trips losslessly. These tests pin
@@ -131,31 +131,31 @@ class TestCheckpointEncodingVersion:
                 path, None, env_name='BipedalWalker-Adversarial-Easy-v0')
 
     def test_versioned_checkpoint_loads(self, tmp_path):
-        from flax import serialization
         from dcd_isaac_tpu.utils.checkpoint import (
-            LEVEL_ENCODING_VERSION, load_checkpoint)
-        tmpl = {'x': jnp.zeros(3)}
+            load_checkpoint, save_checkpoint)
+        tmpl = {'x': jnp.arange(3.0)}
         path = str(tmp_path / 'model.tar')
-        with open(path, 'wb') as f:
-            pickle.dump({
-                'pytree': serialization.to_bytes(tmpl),
-                'host': {'u': 1},
-                'level_encoding': LEVEL_ENCODING_VERSION}, f)
+        save_checkpoint(path, tmpl, {'u': 1})
         state, host = load_checkpoint(
-            path, tmpl, env_name='CarRacing-Bezier-Adversarial-v0')
+            path, {'x': jnp.zeros(3)},
+            env_name='CarRacing-Bezier-Adversarial-v0')
         assert host == {'u': 1}
+        np.testing.assert_array_equal(state['x'], [0.0, 1.0, 2.0])
 
     def test_multigrid_unaffected(self, tmp_path):
-        # multigrid levels carry no float seed lane; old checkpoints load
-        from flax import serialization
-        from dcd_isaac_tpu.utils.checkpoint import load_checkpoint
+        # multigrid levels carry no float seed lane; checkpoints without
+        # the level-encoding field load
+        from dcd_isaac_tpu.utils.checkpoint import (
+            CHECKPOINT_FORMAT, load_checkpoint)
         tmpl = {'x': jnp.zeros(3)}
         path = str(tmp_path / 'model.tar')
         with open(path, 'wb') as f:
-            pickle.dump({'pytree': serialization.to_bytes(tmpl),
+            pickle.dump({'format': CHECKPOINT_FORMAT,
+                         'state': {"['x']": np.ones(3, np.float32)},
                          'host': {}}, f)
-        load_checkpoint(
+        state, _ = load_checkpoint(
             path, tmpl, env_name='MultiGrid-GoalLastAdversarial-v0')
+        np.testing.assert_array_equal(state['x'], np.ones(3))
 
 
 if __name__ == '__main__':

@@ -1,8 +1,8 @@
 """Product multi-chip path: train.py --mesh_shape over the 8-device CPU mesh.
 
-VERDICT r1 item 1 — the mesh must be wired into the product (train.py /
-bench), not just the graft dryrun.  conftest.py forces an 8-device CPU
-platform, so these tests exercise real sharding + XLA collectives.
+The mesh is wired into the product (train.py), not only a dry run.
+conftest.py gives the CPU 8 devices, so these tests exercise real sharding
+and XLA collectives.
 """
 
 import jax
@@ -68,6 +68,9 @@ class TestMeshTrain:
         leaf = jax.tree.leaves(r.state.agent.params)[0]
         assert len(leaf.sharding.device_set) == 8
         assert leaf.sharding.is_fully_replicated
+        # the state keeps its placement, so each program compiled once
+        assert {k: f._cache_size() for k, f in r._jit_cache.items()} == {
+            k: 1 for k in r._jit_cache}
 
     def test_mesh_matches_single_device_numerics(self, tmp_path):
         """The sharded program computes the same update as unsharded

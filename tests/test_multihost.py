@@ -7,10 +7,11 @@ processes), trains the product path (`train.main` with `--multihost
 --mesh_shape dp:8`) with checkpointing, then RESTARTS both processes and
 verifies resume from the sharded-checkpoint across the process restart.
 
-The pod-slice launch recipe this encodes (README): every host runs the
+The multi-host launch recipe this encodes (README): every host runs the
 same command with --multihost --coordinator_address=<host0>:<port>
---num_hosts=N --host_idx=<i>; on real TPU pod slices the three explicit
-flags are unnecessary (jax.distributed autodetects).
+--num_hosts=N --host_idx=<i>. On GPU hosts the three flags are required
+(nothing tells jax.distributed of the cluster); this 2-process CPU test is
+the only place the path runs.
 """
 
 import os

@@ -10,6 +10,7 @@ float tolerance.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -21,7 +22,7 @@ from dcd_isaac_tpu.utils.make_agent import make_all_models
 
 def _make_runner(argv):
     args = parser.parse_args(argv)
-    env = make_env(args.env_name)
+    env = make_env(args.env_name, args=args)
     models = make_all_models(args, env)
     return AdversarialRunner(args, env, models, jax.random.PRNGKey(7))
 
@@ -57,6 +58,62 @@ PAIRED_ARGV = [
     '--level_replay_prob', '0.95',
     '--recurrent_adversary_env', 'true',
 ]
+
+WALKER_ACCEL_ARGV = [
+    '--env_name', 'BipedalWalker-Adversarial-Easy-v0',
+    '--ued_algo', 'domain_randomization',
+    '--use_plr', 'true',
+    '--use_editor', 'true',
+    '--level_editor_prob', '1.0',
+    '--base_levels', 'easy',
+    '--normalize_returns', 'true',
+    '--num_processes', '4',
+    '--num_steps', '8',
+    '--ppo_epoch', '1',
+    '--num_mini_batch', '1',
+    '--level_replay_seed_buffer_size', '8',
+]
+
+CR_ROBUST_PLR_ARGV = [
+    '--env_name', 'CarRacing-Bezier-Adversarial-v0',
+    '--ued_algo', 'domain_randomization',
+    '--use_plr', 'true',
+    '--no_exploratory_grad_updates', 'true',
+    '--frame_stack', '4',
+    '--num_action_repeat', '8',
+    '--normalize_returns', 'true',
+    '--num_processes', '2',
+    '--num_steps', '4',
+    '--ppo_epoch', '1',
+    '--num_mini_batch', '1',
+    '--level_replay_seed_buffer_size', '8',
+]
+
+
+@pytest.mark.parametrize(
+    'argv', [ACCEL_ARGV, PAIRED_ARGV, WALKER_ACCEL_ARGV, CR_ROBUST_PLR_ARGV],
+    ids=['accel', 'paired_plr', 'walker_accel', 'cr_robust_plr'])
+def test_cycle_programs_keep_state_avals(argv):
+    """Each cycle program returns the runner state with the shapes, dtypes
+    and weak types it took; otherwise the second call of every program
+    compiles it again."""
+    r = _make_runner(argv)
+    N = r.args.num_processes
+
+    def avals(tree):
+        return [(x.shape, x.dtype, x.weak_type) for x in jax.tree.leaves(tree)]
+
+    want = avals(r.state)
+    programs = {'generate': (r._build_cycle_generate(), ()),
+                'multi': (r._build_cycle_multi(), (jnp.zeros((2,)),))}
+    if r.use_plr:
+        programs['replay'] = (r._build_cycle_replay(), ())
+    if r.use_editor:
+        programs['edit'] = (r._build_cycle_edit(),
+                            (jnp.zeros((N,), jnp.int32),))
+    for name, (fn, extra) in programs.items():
+        out = jax.eval_shape(fn, r.state, *extra)[0]
+        assert avals(out) == want, name
 
 
 @pytest.mark.parametrize(

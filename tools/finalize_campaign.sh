@@ -1,9 +1,9 @@
 #!/bin/bash
-# Post-campaign acceptance artifacts (VERDICT r2 item 1 deliverables):
+# Post-campaign acceptance artifacts:
 #   1. full maze-benchmark zero-shot eval of each campaign run's final
 #      checkpoint (100 episodes/env, reference eval.py protocol)
 #   2. learning-curve + comparison figures
-# Run AFTER tools/run_campaign.sh completes (needs the TPU chip).
+# Run AFTER tools/run_campaign.sh completes (needs the accelerator).
 set -u
 RUNS=${1:-/root/repo/results/runs}
 OUT=/root/repo/results

@@ -1,4 +1,4 @@
-"""CPU probe for the r4 walker 'TPU kernel fault' (NaN in the cycle program).
+"""CPU probe for the r4 walker device fault (NaN in the cycle program).
 
 Loads the r4 walker ACCEL checkpoint (u200), audits every float leaf of the
 runner state for NaN/Inf, then steps sequential cycles on CPU until a NaN

@@ -2,8 +2,8 @@
 
 Times the teacher construction scan, student rollout, GAE+PLR scoring and
 the PPO update as separately-jitted programs at bench shapes, to attribute
-the cycle cost (VERDICT r1 item 2).  Run on the real TPU (no JAX_PLATFORMS
-override) or CPU.
+the cycle cost.  Run on the GPU (no JAX_PLATFORMS override) or on the CPU
+with JAX_PLATFORMS=cpu.
 
     python tools/profile_phases.py [--num_processes N] [--num_steps T]
 """

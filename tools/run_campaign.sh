@@ -1,8 +1,8 @@
 #!/bin/bash
-# Round-3 TPU training campaign (VERDICT r2 item 1).
+# Round-3 training campaign.
 #
-# Two configs from the reference grid, run sequentially on the one real
-# TPU chip, logging the reference CSV surface (logs.csv with in-training
+# Two configs from the reference grid, run sequentially on one
+# accelerator, logging the reference CSV surface (logs.csv with in-training
 # zero-shot eval every --test_interval updates, level_weights, archives):
 #
 #   1. 60-block ACCEL-from-empty  (grid_configs/minigrid/60_blocks_uniform/

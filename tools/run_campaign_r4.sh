@@ -1,5 +1,5 @@
 #!/bin/bash
-# Round-4 TPU training campaign (VERDICT r3 items 2, 4, 5).
+# Round-4 training campaign.
 #
 # Stages (each skippable / budget-overridable via env vars):
 #   A. acceptance: 60-block ACCEL-from-empty x ACCEL_SEEDS seeds at the
@@ -32,8 +32,7 @@ WALKER_TEST_IV=${WALKER_TEST_IV:-100}
 CR_UPDATES=${CR_UPDATES:-2750}
 K=${K:-50}          # multigrid dispatch size
 # walker/carracing cycles are much larger programs (2048-step
-# physics scans / 96x96 renders); K=50 exceeded what the TPU
-# runtime could execute (worker kernel fault) - K=10 is stable
+# physics scans / 96x96 renders); dispatches of 10 of them at most
 K_HEAVY=${K_HEAVY:-10}
 SKIP_ACCEL=${SKIP_ACCEL:-0}
 SKIP_PLR=${SKIP_PLR:-0}
